@@ -1,6 +1,6 @@
 """Driver entry point: prints ONE JSON line with the headline metric
-({"metric", "value", "unit", "vs_baseline"}) plus the nested per-config /
-kernel suite. Implementation lives in gpupathtracer_tpu/bench.py."""
+({"metric", "value", "unit", "vs_baseline"}) plus the nested per-config
+suite. Implementation lives in gpupathtracer_tpu/bench.py."""
 
 import os
 import sys

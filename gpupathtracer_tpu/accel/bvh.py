@@ -2,7 +2,7 @@
 
 The reference has no acceleration structure at all — its hot loop is
 O(pixels × triangles) Möller–Trumbore (kernel.cu:133-156, SURVEY.md §3.2).
-This module provides the classic answer in TPU-compatible form:
+This module provides the classic answer in jit-compatible form:
 
 - **Builder** (numpy, host): median-split over the longest centroid axis,
   depth-first flattening with *escape (miss) links* — the stackless
@@ -10,15 +10,13 @@ This module provides the classic answer in TPU-compatible form:
   ``miss_link[i]``; leaves own contiguous runs of reordered triangles.
 - **Traversal** (jnp): a ``lax.while_loop`` per ray (vmapped) with a
   current-best-t-bounded slab test. No stack, no recursion — compatible
-  with jit and the CPU/TPU backends.
+  with jit on every backend.
 
 Role in the framework: the asymptotically-scaling backend (O(log N) per
-ray) and the oracle for very large scenes. The production TPU hot path
-remains the MXU Plücker kernel (ops/pallas_intersect.py) whose dense
-tile×block streaming is faster on-chip below ~10^5 triangles; per-lane
-while-loops serialize on the VPU, so this traversal shines on CPU and for
-huge scenes, and its (nodes, links, reordered-tri) arrays are the basis for
-the planned cluster-hierarchy culling of the Pallas kernel.
+ray) and the oracle for very large scenes. The GPU hot path is the Pallas
+kernel (ops/pallas_intersect.py); under vmap every lane of this per-ray
+while-loop waits for the slowest, and its (nodes, links, reordered-tri)
+arrays are the basis for a cluster hierarchy the kernel could cull with.
 
 A C++ builder with identical layout lives in native/ (ctypes); this numpy
 builder is the always-available fallback and test oracle.
@@ -29,8 +27,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from gpupathtracer_tpu.core import struct
 from gpupathtracer_tpu.models.scene import TriangleScene
 from gpupathtracer_tpu.ops.intersect import BIG, EPSILON, Hit, mt_block
 

@@ -142,7 +142,13 @@ def cmd_view(args) -> int:
         frames.append(u8)
         print(f"frame {i + 1}/{args.frames} -> {frame_path}", flush=True)
     if args.gif:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise SystemExit(
+                "--gif needs Pillow (PIL), which is not installed; the PNG "
+                f"frames are in {args.out}"
+            ) from e
 
         imgs = [Image.fromarray(f) for f in frames]
         imgs[0].save(
@@ -245,7 +251,7 @@ def main(argv=None) -> int:
     p.add_argument(
         "--platform",
         default=None,
-        help="force a JAX platform (e.g. cpu, tpu); default = environment's",
+        help="force a JAX platform (e.g. cpu, cuda); default = environment's",
     )
     args = p.parse_args(argv)
     if args.platform:

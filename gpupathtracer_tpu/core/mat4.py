@@ -18,7 +18,17 @@ the inverse-rendering path).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# Every product here is pinned to exact f32: these transforms set the
+# geometry and the camera rays that the reference-parity tests compare
+# bit for bit, and a GPU would otherwise run float32 matmuls in TF32.
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def _f32(x):
@@ -74,8 +84,8 @@ def trs(position, rotation_deg, scale_v) -> jnp.ndarray:
     ``rotateM = Rx; rotateM *= Ry; rotateM *= Rz`` which is ``Rx @ Ry @ Rz``.
     """
     rotation_deg = _f32(rotation_deg)
-    r = rotate_x_deg(rotation_deg[0]) @ rotate_y_deg(rotation_deg[1]) @ rotate_z_deg(rotation_deg[2])
-    return translate(position) @ r @ scale(scale_v)
+    r = _mm(_mm(rotate_x_deg(rotation_deg[0]), rotate_y_deg(rotation_deg[1])), rotate_z_deg(rotation_deg[2]))
+    return _mm(_mm(translate(position), r), scale(scale_v))
 
 
 def look_at_rh(eye, center, up) -> jnp.ndarray:
@@ -88,9 +98,9 @@ def look_at_rh(eye, center, up) -> jnp.ndarray:
     m = m.at[0, :3].set(s)
     m = m.at[1, :3].set(u)
     m = m.at[2, :3].set(-f)
-    m = m.at[0, 3].set(-jnp.dot(s, eye))
-    m = m.at[1, 3].set(-jnp.dot(u, eye))
-    m = m.at[2, 3].set(jnp.dot(f, eye))
+    m = m.at[0, 3].set(-jnp.dot(s, eye, precision=_HI))
+    m = m.at[1, 3].set(-jnp.dot(u, eye, precision=_HI))
+    m = m.at[2, 3].set(jnp.dot(f, eye, precision=_HI))
     return m
 
 
@@ -129,13 +139,13 @@ def normal_matrix(m) -> jnp.ndarray:
 def transform_points(m, pts) -> jnp.ndarray:
     """Apply mat4 to points (..., 3) with w=1 (drops w, no perspective divide)."""
     pts = _f32(pts)
-    return pts @ jnp.transpose(m[:3, :3]) + m[:3, 3]
+    return _mm(pts, jnp.transpose(m[:3, :3])) + m[:3, 3]
 
 
 def transform_vectors(m, vecs) -> jnp.ndarray:
     """Apply mat4 to direction vectors (..., 3) with w=0."""
     vecs = _f32(vecs)
-    return vecs @ jnp.transpose(m[:3, :3])
+    return _mm(vecs, jnp.transpose(m[:3, :3]))
 
 
 # NOTE: the squared guard epsilon must be a *normal* f32 (>= ~1.18e-38): XLA

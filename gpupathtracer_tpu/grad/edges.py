@@ -22,7 +22,7 @@ length within pixel p. Derivation: I_p = ∫_pixel f du dv (the spp-jittered
 box filter); moving the edge by δ along n̂ sweeps a strip dl·δ whose
 integrand jumps from f_out to f_in.
 
-Estimator structure (all TPU-friendly, static shapes):
+Estimator structure (all static shapes):
 1. a host-side edge table (unique edges + face adjacency, built once per
    topology by hashing quantized endpoints);
 2. silhouette classification against the camera (front ⊕ front, or boundary
@@ -69,6 +69,10 @@ from gpupathtracer_tpu.render.renderer import (
 
 # Above this edge count, shadow_edge_gradient switches to the two-level
 # cluster hierarchy (EdgeClusters) automatically.
+# Projections and front-face sign tests are pinned to exact f32 (a GPU
+# would otherwise run float32 products in TF32 and flip silhouette signs).
+_HI = jax.lax.Precision.HIGHEST
+
 _HIER_EDGE_THRESHOLD = 8192
 
 
@@ -295,11 +299,12 @@ def _pick_edges_hierarchical(scene, table, clusters: EdgeClusters, x, va, vb, ke
     tri1 = jnp.asarray(table.tri1)[e0]
     tri2 = jnp.asarray(table.tri2)[e0]
     two = jnp.asarray(table.two_sided)[e0]
-    f1 = jnp.einsum("msk,msk->ms", scene.gn[tri1], x[:, None] - scene.v0[tri1]) > 0
+    f1 = jnp.einsum("msk,msk->ms", scene.gn[tri1], x[:, None] - scene.v0[tri1], precision=_HI) > 0
     boundary = tri2 < 0
     t2c = jnp.maximum(tri2, 0)
     f2 = jnp.where(
-        boundary, f1, jnp.einsum("msk,msk->ms", scene.gn[t2c], x[:, None] - scene.v0[t2c]) > 0
+        boundary, f1,
+        jnp.einsum("msk,msk->ms", scene.gn[t2c], x[:, None] - scene.v0[t2c], precision=_HI) > 0,
     )
     sil = jnp.where(boundary, f1 | two, f1 != f2) & valid_e
     wa = va[e0] - x[:, None]
@@ -365,9 +370,9 @@ def screen_xy(cam: Camera, p: jnp.ndarray) -> jnp.ndarray:
     ((x/W)·2−1, 1−(y/H)·2), so forward projection = proj·view + divide,
     then x = (ndc_x+1)/2·W, y = (1−ndc_y)/2·H; pixel id = floor.
     """
-    m = projection_matrix(cam) @ view_matrix(cam)
+    m = jnp.matmul(projection_matrix(cam), view_matrix(cam), precision=_HI)
     ph = jnp.concatenate([p, jnp.ones_like(p[:, :1])], axis=-1)
-    clip = ph @ m.T
+    clip = jnp.matmul(ph, m.T, precision=_HI)
     w = jnp.where(jnp.abs(clip[:, 3:4]) < 1e-12, 1e-12, clip[:, 3:4])
     ndc = clip[:, :2] / w
     x = (ndc[:, 0] + 1.0) * 0.5 * cam.width
@@ -376,9 +381,9 @@ def screen_xy(cam: Camera, p: jnp.ndarray) -> jnp.ndarray:
 
 
 def _clip_w(cam: Camera, p: jnp.ndarray) -> jnp.ndarray:
-    m = projection_matrix(cam) @ view_matrix(cam)
+    m = jnp.matmul(projection_matrix(cam), view_matrix(cam), precision=_HI)
     ph = jnp.concatenate([p, jnp.ones_like(p[:, :1])], axis=-1)
-    return (ph @ m.T)[:, 3]
+    return jnp.matmul(ph, m.T, precision=_HI)[:, 3]
 
 
 def _trace_at_screen(scene, cam: Camera, settings: RenderSettings, xy, key, spp: int):
@@ -759,7 +764,9 @@ def shadow_edge_gradient(
         # Flat per-(x, edge) silhouette classification + chord weights,
         # chunked to bound the (M, E) intermediates.
         def front_wrt(t, xs):  # (C, E)
-            return jnp.einsum("ek,cek->ce", scene.gn[t], xs[:, None, :] - scene.v0[t][None]) > 0
+            return jnp.einsum(
+                "ek,cek->ce", scene.gn[t], xs[:, None, :] - scene.v0[t][None], precision=_HI
+            ) > 0
 
         picks, qs = [], []
         for c0 in range(0, m, chunk):
@@ -817,7 +824,9 @@ def shadow_edge_gradient(
         tau_hat = tau / jnp.maximum(t_len, 1e-12)[:, None]
 
         # Outward normal in the tangent plane at ω (away from the front owner).
-        f1_pick = jnp.einsum("mk,mk->m", scene.gn[tri1[pick]], xr - scene.v0[tri1[pick]]) > 0
+        f1_pick = jnp.einsum(
+            "mk,mk->m", scene.gn[tri1[pick]], xr - scene.v0[tri1[pick]], precision=_HI
+        ) > 0
         int_tri = jnp.where(f1_pick, tri1[pick], jnp.maximum(tri2[pick], 0))
         v0i = scene.v0[int_tri]
         pts_i = jnp.stack([v0i, v0i + scene.e1[int_tri], v0i + scene.e2[int_tri]], axis=1)

@@ -361,8 +361,7 @@ def run_inverse_demo(
     history = []
     for i in range(start_step, steps):
         params, opt_state, loss = step(params, opt_state, jnp.uint32(i))
-        if i % 10 == 0 or i == steps - 1:
-            history.append((i, float(loss)))
+        history.append((i, float(loss)))
         if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i == steps - 1):
             ckpt.save_train_state(checkpoint_path, params, opt_state, i + 1)
     if not history:  # fully resumed past the end — report the current loss

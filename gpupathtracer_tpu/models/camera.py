@@ -20,9 +20,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from gpupathtracer_tpu.core import mat4
+from gpupathtracer_tpu.core import mat4, struct
 
 
 @struct.dataclass
@@ -126,8 +125,11 @@ def generate_rays_for_pixels(cam: Camera, pixel_idx: jnp.ndarray, jitter_uv=None
     # vec4(Px, Py, 1, 1) * farClip, then invProj, then invView; take .xyz with
     # NO perspective divide (glm vec3(vec4) just drops w) — kernel.cu:203.
     clip = jnp.stack([px, py, jnp.ones_like(px), jnp.ones_like(px)], axis=-1) * cam.far_clip
-    m = inv_view @ inv_proj  # (4,4)
-    look_at = clip @ m.T  # (R,4)
+    # Exact f32 products: clip coordinates are scaled by far_clip (1000), so
+    # TF32 rounding would move ray directions visibly.
+    hi = jax.lax.Precision.HIGHEST
+    m = jnp.matmul(inv_view, inv_proj, precision=hi)  # (4,4)
+    look_at = jnp.matmul(clip, m.T, precision=hi)  # (R,4)
     dirs = mat4.normalize(look_at[:, :3] - cam.position[None, :])
     origins = jnp.broadcast_to(cam.position[None, :], dirs.shape)
     return origins, dirs

@@ -30,12 +30,12 @@ import enum
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-# The factorized MXU bilinear path (see textured_albedo) materializes a
-# (R, W*3) row-interpolated intermediate; cap its width at one MXU lane
-# tile so the dot stays a single-tile contraction and the intermediate
-# stays small. Wider textures take the flat-index gather path.
+from gpupathtracer_tpu.core import struct
+
+# The factorized bilinear path (see textured_albedo) materializes a
+# (R, W*3) row-interpolated intermediate; cap its width so the
+# intermediate stays small. Wider textures take the flat-index gather path.
 _FACTORIZED_MAX_COLS = 128  # W*3 <= 128  (textures up to 42 px wide)
 _FACTORIZED_MAX_ROWS = 1024  # T*H one-hot depth bound
 
@@ -163,18 +163,15 @@ def textured_albedo(
     their base albedo. UV convention: v = 0 is the image's BOTTOM row
     (OBJ/GL convention; writers flip for row-major storage).
 
-    TPU lowering (measured on v5e at R = 1.05M rays, 32x32 texture):
-    multidimensional advanced indexing ``textures[tid, y0, x0]`` lowers to
-    a slow multi-operand gather (52 ms/call); the same four taps as 1-D
-    takes from a flattened ``(T*H*W, 3)`` table run 38 ms; and for small
-    textures the whole bilinear FACTORIZES into two one-hot contractions —
-    a row interpolation ``(R, T*H) @ (T*H, W*3)`` on the MXU followed by a
-    per-ray column combine — at 27 ms forward and 35 ms backward (vs 68 ms
-    for the take path's scatter-add transpose): d/d(texels) becomes the
-    dot's transpose matmul instead of a 4-tap scatter. The factorized path
-    is auto-selected when the texture stack fits one MXU lane tile
-    (W*3 <= 128, T*H <= 1024); both paths agree to float rounding
-    (association order differs across the four taps).
+    Two lowerings. The four taps as 1-D takes from a flattened
+    ``(T*H*W, 3)`` table; or, for small textures, the whole bilinear
+    FACTORIZES into two one-hot contractions — a row interpolation
+    ``(R, T*H) @ (T*H, W*3)`` followed by a per-ray column combine — so
+    d/d(texels) becomes the dot's transpose matmul instead of a 4-tap
+    scatter-add. The factorized path is auto-selected for small texture
+    stacks (W*3 <= 128, T*H <= 1024); both paths agree to float rounding
+    (association order differs across the four taps). Which is faster on
+    the H100 has not been measured yet.
     """
     out = base
     cu = jnp.floor(uv[:, 0] * checker_scale)
@@ -197,7 +194,7 @@ def textured_albedo(
         y0 = jnp.mod(v0.astype(jnp.int32), th)
         y1 = jnp.mod(y0 + 1, th)
         if tw * 3 <= _FACTORIZED_MAX_COLS and t_rows * th <= _FACTORIZED_MAX_ROWS:
-            # Factorized MXU path: one-hot row interpolation then column mix.
+            # Factorized path: one-hot row interpolation then column mix.
             rows = textures.reshape(t_rows * th, tw * 3)
             r0 = tid * th + y0
             r1 = tid * th + y1

@@ -21,6 +21,25 @@ DEAD_ORIGIN = (3.0e7, 3.0e7, 3.0e7)
 DEAD_DIR = (0.577350269, 0.577350269, 0.577350269)
 
 
+def morton_codes(points: jnp.ndarray, lo: jnp.ndarray, hi: jnp.ndarray) -> jnp.ndarray:
+    """10-bit-per-axis Morton codes of points (R, 3) inside the box [lo, hi].
+
+    Used to cluster triangles spatially (tight block AABBs for the frustum
+    cull) and to sort rays by origin and direction for tile coherence.
+    """
+    span = jnp.maximum(hi - lo, 1e-12)
+    q = jnp.clip(((points - lo) / span * 1023.0), 0.0, 1023.0).astype(jnp.uint32)
+
+    def spread(x):  # interleave 10 bits with 2-bit gaps
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+
+
 def partition_alive(alive: jnp.ndarray):
     """Stable alive-first permutation.
 
@@ -65,9 +84,8 @@ def compact_rays_coherent(
 
     - ``"dir"``: direction octant, 12-bit direction Morton, 12-bit origin
       Morton — tiles become sign-coherent with tightly bounded direction
-      boxes, so the interval frustum CULL fires (218→95 ms measured at 640k
-      fully-live incoherent rays on v5e). Right for long, open scenes where
-      rays fly far.
+      boxes, so the interval frustum CULL fires. Right for long, open
+      scenes where rays fly far.
     - ``"origin"``: octant, then 15-bit origin Morton, then 13-bit
       direction Morton — tiles are octant-PURE (sign-coherent direction
       intervals ⇒ finite slab arithmetic) AND share a small origin box.
@@ -89,8 +107,6 @@ def compact_rays_coherent(
 
     Returns ``(o_c, d_c, inv)``; gather results with ``res[inv]``.
     """
-    from gpupathtracer_tpu.ops.pallas_intersect import _morton_codes
-
     od = jax.lax.stop_gradient(o)
     dd = jax.lax.stop_gradient(d)
     octant = (
@@ -99,13 +115,13 @@ def compact_rays_coherent(
         + 4 * (dd[:, 2] < 0).astype(jnp.uint32)
     )
     ones = jnp.ones((3,), od.dtype)
-    dm = _morton_codes(dd, -ones, ones)  # 30-bit
+    dm = morton_codes(dd, -ones, ones)  # 30-bit
     live = jnp.where(alive[:, None], od, jnp.nan)
     lo = jnp.nanmin(live, axis=0)
     hi = jnp.nanmax(live, axis=0)
     lo = jnp.where(jnp.isfinite(lo), lo, 0.0)
     hi = jnp.where(jnp.isfinite(hi), hi, 1.0)
-    om = _morton_codes(od, lo, hi)
+    om = morton_codes(od, lo, hi)
     if key_mode == "origin":
         key = (
             ((~alive).astype(jnp.uint32) << 31)

@@ -35,7 +35,7 @@ def make_onb(n):
     """Branchless orthonormal basis around unit normal n (..., 3).
 
     Duff et al. 2017 "Building an Orthonormal Basis, Revisited" — no
-    per-lane control flow, TPU-vectorizes cleanly.
+    per-lane control flow, vectorizes cleanly.
     """
     z = n[..., 2]
     sign = jnp.where(z >= 0.0, 1.0, -1.0)
@@ -117,10 +117,9 @@ def pixel_sample_key(base_key, pixel_idx, sample_idx):
 # sequences layout/shard/replay-invariant.
 #
 # - "pcg": PCG4D hash (Jarzynski & Olano, "Hash Functions for GPU Rendering",
-#   JCGT 2020) — ~12 integer vector ops per 4 lanes of output, entirely on
-#   the VPU with no per-lane vmap. The TPU-first default: threefry's 20-round
-#   Feistel costs ~25 ms per 640k-lane fold+draw site on v5e where PCG4D is
-#   ~1 ms, and a frame has 3-5 such sites per bounce.
+#   JCGT 2020) — ~12 integer vector ops per 4 lanes of output, elementwise
+#   with no per-lane vmap. The default: threefry's 20-round Feistel is far
+#   more work per draw, and a frame has 3-5 draw sites per bounce.
 # - "threefry": jax.random (threefry2x32) — the crypto-strength engine kept
 #   for A/B validation (tests compare estimator means across engines).
 

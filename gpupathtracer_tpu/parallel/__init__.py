@@ -1,7 +1,7 @@
 """Multi-chip / multi-host parallelism over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.4); everything here is a
-new first-class component, designed around XLA collectives over ICI/DCN:
+new first-class component, designed around XLA collectives (NCCL on GPUs):
 
 - ``mesh.py``: device mesh with ('data', 'scene') axes — pixels/samples
   shard over 'data' (DP/SP analogue), scene primitive blocks shard over

@@ -3,8 +3,9 @@
 'data' shards pixels/samples (no communication until framebuffer assembly);
 'scene' shards triangle blocks for scenes that exceed per-chip HBM or to
 parallelize the O(N) intersection sweep (SURVEY.md §2.4 TP row). Axis sizes
-multiply to the device count; ICI-contiguous ordering comes from
-jax.devices() order.
+multiply to the device count. The cards of one host are joined all to all
+(NVLink), so the mesh follows the algorithm and takes jax.devices() order
+as it comes.
 """
 
 from __future__ import annotations

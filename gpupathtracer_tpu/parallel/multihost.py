@@ -2,7 +2,7 @@
 
 Single-host meshes work without any of this; on a multi-host slice call
 ``init_distributed()`` first (SURVEY.md §5 communication backend: XLA
-collectives over ICI intra-slice and DCN across hosts — no NCCL/MPI).
+collectives, which the GPU backend hands to NCCL; no hand-written MPI).
 """
 
 from __future__ import annotations

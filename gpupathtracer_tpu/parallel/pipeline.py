@@ -12,7 +12,7 @@ Schedule (S stages, M microbatches, T = M + S − 1 steps):
     step t: stage 0 loads microbatch t (t < M) and applies bounce 0;
             stage k applies bounce k to microbatch t−k;
             stage S−1 writes microbatch t−S+1's finished radiance;
-            states rotate k → k+1 over the ICI ring (``ppermute``).
+            states rotate k → k+1 around the device ring (``ppermute``).
 
 Stages holding no microbatch carry an inert dead state (no lane alive —
 every bounce application is a no-op by the integrator's masked-liveness

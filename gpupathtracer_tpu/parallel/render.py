@@ -29,15 +29,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 canonical location
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from gpupathtracer_tpu.models.camera import Camera
 from gpupathtracer_tpu.models.scene import TriangleScene
 from gpupathtracer_tpu.ops.intersect import BIG, Hit
-from gpupathtracer_tpu.render.integrator import make_intersect_fn, resolved_intersector
+from gpupathtracer_tpu.render.integrator import make_intersect_fn
 from gpupathtracer_tpu.render.renderer import (
     RenderSettings,
     _integrator_options,
@@ -67,12 +64,12 @@ def shard_scene_rows(scene: TriangleScene, n_scene: int) -> dict:
 def make_ring_intersect(
     local_scene: TriangleScene, rows_per_shard: int, n_scene: int, options
 ):
-    """Closest hit across 'scene' via ICI ring rotation (SURVEY.md §2.4 SP row).
+    """Closest hit across 'scene' via ring rotation (SURVEY.md §2.4 SP row).
 
     The ring-attention analogue: rays stay RESIDENT on their device; the
     scene row-shards rotate around the 'scene' ring with ``ppermute``, and a
     running min-(t, global row) folds after each hop. Per step each device
-    moves one scene shard over ICI instead of all-gathering per-ray hit
+    moves one scene shard to its ring neighbour instead of all-gathering per-ray hit
     records — for R rays and S shards the wire cost is S·|shard| (scene-
     sized, ray-independent), vs the all-gather resolve's S·R hit records;
     the fold is numerically exact, so results are bit-identical to the
@@ -251,38 +248,15 @@ def render_frame_distributed(
         local_scene = scene_rep.replace(
             **{f: tri_shard[f][0] for f in _ROW_FIELDS}
         )
-        packed2 = None
         if n_scene == 1:
             intersect_fn = make_intersect_fn(local_scene, opts)
-            # Mixed-phase packing (render_frame parity): pure-DP shards run
-            # the full local scene, so the scan bounces can use a second
-            # wider pack just like the single-device path. Scene-sharded
-            # strategies run one width (a second pack per sweep stage is
-            # not obviously free; see tri_block_secondary in renderer.py).
-            if (
-                settings.tri_block_secondary is not None
-                and settings.bounces > 1
-                and resolved_intersector(opts) == "pallas"
-            ):
-                from gpupathtracer_tpu.ops.pallas_intersect import (
-                    compiled_tri_block,
-                    pack_scene,
-                )
-
-                packed2 = pack_scene(
-                    local_scene,
-                    tri_block=compiled_tri_block(settings.tri_block_secondary),
-                )
         elif ulysses:
             intersect_fn = make_ulysses_intersect(local_scene, rows_per_shard, n_scene, opts)
         elif scene_strategy == "ring":
             intersect_fn = make_ring_intersect(local_scene, rows_per_shard, n_scene, opts)
         else:
             intersect_fn = make_scene_sharded_intersect(local_scene, rows_per_shard, opts)
-        return accumulate_radiance(
-            scene_rep, camera, pix, settings, key, intersect_fn,
-            packed_secondary=packed2,
-        )
+        return accumulate_radiance(scene_rep, camera, pix, settings, key, intersect_fn)
 
     film_sum = run(pixel_idx, scene, rows, base_key)
     return (film_sum / settings.spp).reshape(h, w, 3)

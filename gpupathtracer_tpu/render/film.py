@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from gpupathtracer_tpu.core import struct
 
 
 @struct.dataclass

@@ -1,4 +1,4 @@
-"""Live progressive preview — the TPU-native answer to the reference's
+"""Live progressive preview — this framework's answer to the reference's
 GLFW viewer loop (utilities.h:434-778) without GL.
 
 The reference couples CUDA to an OpenGL PBO and redraws a textured quad per

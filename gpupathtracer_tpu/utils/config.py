@@ -127,13 +127,7 @@ def parse_config(cfg: dict, config_dir: str = "."):
         background=tuple(rnd.get("background", (0.0, 0.0, 0.0))),
         aov=rnd.get("aov", "radiance"),
         rr_start=rnd.get("rr_start"),
-        # 512 is the measured resident-scene sweet spot; scenes past the
-        # VMEM budget (streamed kernel) should set 1024 — the round-5
-        # ladder peaks there on both 331k- and 1.3M-tri workloads.
         tri_block=int(rnd.get("tri_block", 512)),
-        tri_block_secondary=(
-            int(rnd["tri_block_secondary"]) if "tri_block_secondary" in rnd else None
-        ),
         ray_chunk=int(rnd.get("ray_chunk", 8192)),
         use_shading_normals=bool(rnd.get("use_shading_normals", False)),
         intersector=rnd.get("intersector", "auto"),
@@ -146,7 +140,6 @@ def parse_config(cfg: dict, config_dir: str = "."):
         sort_key=rnd.get("sort_key", "auto"),
         compact=bool(rnd.get("compact", True)),
         compact_mode=rnd.get("compact_mode", "permute"),
-        kernel_precision=rnd.get("kernel_precision", "auto"),
         rng=rnd.get("rng", "pcg"),
     )
 

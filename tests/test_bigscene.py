@@ -1,22 +1,24 @@
-"""Large-scene coverage (VERDICT round-1 item 2): subdivision correctness,
-and streamed-kernel parity vs the Möller–Trumbore oracle on a >100k-triangle
-scene — the regime past the VMEM-resident budget."""
+"""Large-scene coverage: subdivision correctness, and kernel parity vs the
+Möller–Trumbore oracle on an 82k-triangle scene (many blocks to cull and
+order front to back)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpupathtracer_tpu.models.obj import load_obj, subdivide_mesh
-from gpupathtracer_tpu.models.scene import build_scene, mesh_spec
-from gpupathtracer_tpu.ops import pallas_intersect
+from gpupathtracer_tpu.models.obj import subdivide_mesh
+from gpupathtracer_tpu.models.scene import build_scene, icosphere, mesh_spec
 from gpupathtracer_tpu.ops.intersect import intersect_brute
 from gpupathtracer_tpu.ops.pallas_intersect import intersect_pallas, pack_scene
+from meshes import cube_mesh
 
-WAHOO = "/root/reference/sceneResources/wahoo.obj"
+
+def _big_mesh():
+    return subdivide_mesh(icosphere(4), 2)  # 81,920 tris
 
 
 def test_subdivide_preserves_surface():
-    mesh = load_obj("/root/reference/sceneResources/cube.obj")
+    mesh = cube_mesh()
     sub = subdivide_mesh(mesh, 2)
     assert sub.num_triangles == mesh.num_triangles * 16
     # Same surface: total area unchanged; bounding box unchanged.
@@ -41,7 +43,7 @@ def test_subdivide_preserves_surface():
 def test_subdivided_render_matches_base():
     """Subdivision leaves the surface unchanged ⇒ the closest-hit t field is
     identical (up to fp) for rays hitting the interior of original tris."""
-    mesh = load_obj("/root/reference/sceneResources/cube.obj")
+    mesh = cube_mesh()
     base = build_scene([mesh_spec(mesh)], [{"type": "diffuse"}], pad_to_multiple=8)
     sub = build_scene(
         [mesh_spec(subdivide_mesh(mesh, 2))], [{"type": "diffuse"}], pad_to_multiple=8
@@ -60,25 +62,20 @@ def test_subdivided_render_matches_base():
 
 
 @pytest.mark.slow
-def test_streamed_kernel_parity_100k_scene(monkeypatch):
-    """Streamed cluster-DMA kernel vs the oracle on 165k triangles (wahoo
-    subdivided x2, two instances) with camera-coherent rays. The packed
-    matrix (~21 MB) exceeds the 16 MB resident budget naturally — no
-    monkeypatch needed for selection; we also raise the cluster
-    target size to force multi-block clusters (bpc > 1) through the
-    unrolled in-cluster path."""
-    mesh = subdivide_mesh(load_obj(WAHOO), 2)  # 82,752 tris
+def test_kernel_parity_large_scene():
+    """Kernel vs the oracle on 164k triangles (two subdivided icospheres)
+    with camera-coherent rays."""
+    mesh = _big_mesh()
     scene = build_scene(
         [
-            mesh_spec(mesh, position=(-4.0, -2.0, 0.0), scale=(0.55, 0.55, 0.55)),
-            mesh_spec(mesh, position=(4.0, -2.0, 0.0), scale=(0.55, 0.55, 0.55)),
+            mesh_spec(mesh, position=(-4.0, -2.0, 0.0), scale=(1.5, 1.5, 1.5)),
+            mesh_spec(mesh, position=(4.0, -2.0, 0.0), scale=(1.5, 1.5, 1.5)),
         ],
         [{"type": "diffuse"}],
         pad_to_multiple=512,
     )
     assert scene.num_triangles >= 100_000
     packed = pack_scene(scene, tri_block=512)
-    assert packed.w.size * 4 > pallas_intersect.RESIDENT_BUDGET_BYTES
 
     # Camera-like coherent bundle: one origin, directions at random points
     # inside the instanced meshes' bounding box (guaranteed mostly-hit).
@@ -92,7 +89,6 @@ def test_streamed_kernel_parity_100k_scene(monkeypatch):
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     d = jnp.asarray(dirs)
 
-    monkeypatch.setattr(pallas_intersect, "CLUSTER_TARGET_BYTES", 512 * 1024)  # forces bpc > 1
     h = intersect_pallas(o, d, packed, ray_tile=128, interpret=True)
     h_ref = intersect_brute(o, d, scene, tri_block=512)
 
@@ -106,20 +102,18 @@ def test_streamed_kernel_parity_100k_scene(monkeypatch):
 
 
 @pytest.mark.slow
-def test_streamed_occlusion_parity(monkeypatch):
-    """Streamed any-hit kernel (scenes past the resident budget, bpc > 1)
-    vs thresholded brute-force closest hit — same predicate, so exact
-    agreement is required; max_t = 0 lanes must report unoccluded."""
+def test_kernel_occlusion_parity_large_scene():
+    """Any-hit mode vs thresholded brute-force closest hit on 82k triangles —
+    same predicate, so exact agreement is required; max_t = 0 lanes must
+    report unoccluded."""
     from gpupathtracer_tpu.ops.pallas_intersect import intersect_pallas_occluded
 
-    mesh = subdivide_mesh(load_obj(WAHOO), 2)  # 82,752 tris
     scene = build_scene(
-        [mesh_spec(mesh, position=(0.0, -2.0, 0.0), scale=(0.55, 0.55, 0.55))],
+        [mesh_spec(_big_mesh(), position=(0.0, -2.0, 0.0), scale=(1.5, 1.5, 1.5))],
         [{"type": "diffuse"}],
         pad_to_multiple=512,
     )
     packed = pack_scene(scene, tri_block=512)
-    assert packed.w.size * 4 > pallas_intersect.RESIDENT_BUDGET_BYTES
 
     r = 512
     rng = np.random.default_rng(7)
@@ -140,7 +134,6 @@ def test_streamed_occlusion_parity(monkeypatch):
     cut[::5] = 0.0
     max_t = jnp.asarray(cut)
 
-    monkeypatch.setattr(pallas_intersect, "CLUSTER_TARGET_BYTES", 512 * 1024)  # bpc > 1
     occ = intersect_pallas_occluded(o, d, max_t, packed, ray_tile=128, interpret=True)
     want = np.asarray(h_ref.hit) & (np.asarray(h_ref.t) < cut)
     np.testing.assert_array_equal(np.asarray(occ), want)

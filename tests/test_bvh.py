@@ -9,6 +9,7 @@ from gpupathtracer_tpu.accel.bvh import Bvh, build_bvh, intersect_bvh
 from gpupathtracer_tpu.models.obj import MeshData
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.ops.intersect import intersect_brute
+from meshes import cube_mesh, triangle_mesh
 
 
 def random_scene(seed=0, n=300):
@@ -101,7 +102,7 @@ def test_bvh_in_integrator():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [
@@ -132,7 +133,7 @@ def test_bvh_via_render_settings():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/cube.obj", mat_id=0),
+            mesh_spec(cube_mesh(), mat_id=0),
             plane_spec((0.0, 0.0, -2.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [

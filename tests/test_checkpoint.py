@@ -9,6 +9,7 @@ from gpupathtracer_tpu.render.progressive import render_progressive
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
 from gpupathtracer_tpu.utils import checkpoint as ckpt
 from gpupathtracer_tpu.utils.metrics import read_events
+from meshes import triangle_mesh
 
 RED = {"type": "diffuse", "albedo": (1.0, 0.0, 0.0)}
 EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0}
@@ -17,7 +18,7 @@ EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.
 def _scene():
     return build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [RED, EMITTER],

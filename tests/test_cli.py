@@ -11,11 +11,13 @@ import numpy as np
 from gpupathtracer_tpu.cli import main
 from gpupathtracer_tpu.utils.image import read_ppm
 
+CONFIG1 = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scenes", "config1_triangle.toml")
+
 
 def test_render_cli_ppm_roundtrip(tmp_path, capsys):
     out = str(tmp_path / "c1.ppm")
     rc = main(
-        ["render", "/root/repo/scenes/config1_triangle.toml", "--out", out, "--spp", "2"]
+        ["render", CONFIG1, "--out", out, "--spp", "2"]
     )
     assert rc == 0
     assert "rendered 256x256" in capsys.readouterr().out
@@ -34,7 +36,7 @@ def test_render_cli_checkpointed_resume(tmp_path, capsys):
     out2 = str(tmp_path / "b.ppm")
     ck = str(tmp_path / "film.npz")
     args = [
-        "render", "/root/repo/scenes/config1_triangle.toml",
+        "render", CONFIG1,
         "--spp", "4", "--chunk-spp", "2", "--checkpoint", ck,
     ]
     assert main(args + ["--out", out1]) == 0
@@ -47,7 +49,7 @@ def test_render_cli_checkpointed_resume(tmp_path, capsys):
 def test_benchmark_cli_json(tmp_path, capsys):
     """`firefly benchmark` emits the driver-consumable JSON line."""
     rc = main(
-        ["benchmark", "--scene", "/root/repo/scenes/config1_triangle.toml",
+        ["benchmark", "--scene", CONFIG1,
          "--iters", "1", "--warmup", "1"]
     )
     assert rc == 0
@@ -55,3 +57,28 @@ def test_benchmark_cli_json(tmp_path, capsys):
     result = json.loads(line)
     assert {"metric", "value", "unit", "vs_baseline"} <= set(result)
     assert result["value"] > 0
+
+
+def test_main_path_imports_without_flax_and_pil(tmp_path):
+    """The render path needs neither flax nor PIL (the GPU machine is not
+    sure to have them): block both imports and render config 5 to a PNG."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "c5.png")
+    code = (
+        "import sys; sys.modules['flax'] = None; sys.modules['PIL'] = None\n"
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        "from gpupathtracer_tpu import cli\n"
+        "from gpupathtracer_tpu.utils.image import read_png\n"
+        f"rc = cli.main(['render', {os.path.join(repo, 'scenes', 'config5_invert_target.toml')!r},"
+        f" '--out', {out!r}, '--spp', '1'])\n"
+        f"assert rc == 0 and read_png({out!r}).shape == (128, 128, 3)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo, JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cache"))
+    done = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert done.returncode == 0, done.stderr[-2000:]

@@ -4,6 +4,7 @@ invariance (compaction must not change a single sample)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from gpupathtracer_tpu.models.camera import Camera
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
@@ -13,6 +14,7 @@ from gpupathtracer_tpu.ops.compaction import (
     partition_alive,
 )
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
+from meshes import cube_mesh, triangle_mesh
 
 
 def test_partition_alive_stable():
@@ -69,7 +71,7 @@ def test_compact_rays_coherent_roundtrip():
 def test_render_invariant_under_compaction():
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (4, 4, 4), mat_id=1),
         ],
         [
@@ -97,7 +99,7 @@ def test_mask_compaction_matches_oracle_and_permute():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/cube.obj", mat_id=0),
+            mesh_spec(cube_mesh(), mat_id=0),
             plane_spec((0.0, 0.0, -2.0), (0, 0, 0), (6, 6, 6), mat_id=1),
         ],
         [
@@ -164,7 +166,7 @@ def test_render_invariant_under_sort_key():
     per-lane results don't depend on lane order."""
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (4, 4, 4), mat_id=1),
         ],
         [
@@ -189,15 +191,17 @@ def test_render_invariant_under_sort_key():
     np.testing.assert_array_equal(img_off, img_origin)
 
 
-def test_render_invariant_under_secondary_block_width():
-    """Mixed-phase packing (tri_block_secondary): the scan bounces run on a
-    second pack at a different block width. Packed row order is Morton
-    (block-width-independent) and min/argmin ties resolve first-in-order
-    within and across blocks, so images are bit-identical to the uniform
-    pack — for both estimators (the occlusion kernel repacks too)."""
+@pytest.mark.parametrize("estimator", ["naive", "nee"])
+def test_render_invariant_under_kernel_block_width(estimator, monkeypatch):
+    """The kernel's triangle block width changes tiling only: packed row
+    order is Morton (block-width-independent) and min/argmin ties resolve
+    first-in-order within and across blocks, so images are bit-identical
+    across widths — for both estimators (the any-hit query packs too)."""
+    from gpupathtracer_tpu.ops import pallas_intersect as pi
+
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (4, 4, 4), mat_id=1),
         ],
         [
@@ -207,13 +211,12 @@ def test_render_invariant_under_secondary_block_width():
         pad_to_multiple=128,
     )
     cam = Camera.create(position=(0.5, 0.5, 3.0), width=24, height=24)
-    for estimator in ("naive", "nee"):
-        base = dict(
-            width=24, height=24, spp=2, bounces=3, tri_block=128,
-            intersector="pallas", estimator=estimator,
-        )
-        img_uni = np.asarray(render_frame(scene, cam, RenderSettings(**base)))
-        img_mix = np.asarray(
-            render_frame(scene, cam, RenderSettings(**base, tri_block_secondary=256))
-        )
-        np.testing.assert_array_equal(img_uni, img_mix)
+    settings = RenderSettings(
+        width=24, height=24, spp=2, bounces=3, tri_block=128,
+        intersector="pallas", estimator=estimator,
+    )
+    imgs = []
+    for tb in (16, 64):
+        monkeypatch.setattr(pi, "TRI_BLOCK", tb)
+        imgs.append(np.asarray(render_frame(scene, cam, settings)))
+    np.testing.assert_array_equal(imgs[0], imgs[1])

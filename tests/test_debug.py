@@ -11,12 +11,13 @@ from gpupathtracer_tpu.models.camera import Camera
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
 from gpupathtracer_tpu.utils.debug import checkify_render, debug_mode
+from meshes import triangle_mesh
 
 
 def _small_scene():
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [
@@ -59,3 +60,36 @@ def test_debug_mode_roundtrip():
         img = np.asarray(render_frame(scene, cam, settings))
     assert np.isfinite(img).all()
     assert not jax.config.jax_debug_nans  # restored on exit
+
+
+@pytest.mark.parametrize("env_dir", [None, "from_env"])
+def test_compile_cache_dir_choice(env_dir, tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is used and the
+    code sets none itself; unset, the cache is the fixed in-checkout dir."""
+    import os
+
+    from gpupathtracer_tpu.utils import debug
+
+    old = jax.config.jax_compilation_cache_dir
+    set_dirs = []
+    real_update = jax.config.update
+
+    def spy(name, value):
+        if name == "jax_compilation_cache_dir":
+            set_dirs.append(value)
+        return real_update(name, value)
+
+    monkeypatch.setattr(jax.config, "update", spy)
+    try:
+        if env_dir:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / env_dir))
+            assert debug.enable_compile_cache() == str(tmp_path / env_dir)
+            assert set_dirs == []
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            got = debug.enable_compile_cache()
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            assert got == os.path.join(repo, ".jax_cache") == debug.DEFAULT_COMPILE_CACHE_DIR
+            assert set_dirs == [got]
+    finally:
+        real_update("jax_compilation_cache_dir", old)

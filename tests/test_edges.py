@@ -19,6 +19,7 @@ from gpupathtracer_tpu.models.camera import Camera, generate_rays_for_pixels
 from gpupathtracer_tpu.models.obj import MeshData
 from gpupathtracer_tpu.models.scene import GeometrySpec, build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
+from meshes import cube_mesh
 
 EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0}
 BLACK = {"type": "diffuse", "albedo": (0.0, 0.0, 0.0)}
@@ -42,7 +43,7 @@ def quad_mesh(verts=QUAD):
 
 def test_edge_table_cube():
     scene = build_scene(
-        [mesh_spec("/root/reference/sceneResources/cube.obj")],
+        [mesh_spec(cube_mesh())],
         [BLACK],
         pad_to_multiple=8,
     )
@@ -54,7 +55,7 @@ def test_edge_table_cube():
 
 def test_silhouette_classification_cube():
     scene = build_scene(
-        [mesh_spec("/root/reference/sceneResources/cube.obj")],
+        [mesh_spec(cube_mesh())],
         [BLACK],
         pad_to_multiple=8,
     )

@@ -19,6 +19,8 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 sys.path.insert(0, {repo!r})
+sys.path.insert(0, os.path.join({repo!r}, "tests"))
+from meshes import triangle_mesh
 from gpupathtracer_tpu.models.camera import Camera
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.render.progressive import render_progressive
@@ -39,7 +41,7 @@ if os.environ.get("INJECT_FAULT") == "1":
 
 scene = build_scene(
     [
-        mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+        mesh_spec(triangle_mesh(), mat_id=0),
         plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (4, 4, 4), mat_id=1),
     ],
     [

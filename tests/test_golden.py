@@ -14,6 +14,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from meshes import triangle_mesh  # noqa: E402
+
 import numpy as np
 import pytest
 
@@ -25,7 +27,7 @@ def _triangle_scene():
 
     return build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [
@@ -52,7 +54,7 @@ def _render_config1(intersector="brute", estimator="naive"):
 
         scene = build_scene(
             [
-                mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+                mesh_spec(triangle_mesh(), mat_id=0),
                 plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
             ],
             [
@@ -68,7 +70,8 @@ def _render_scene_config(path, width, height, spp, **overrides):
     from gpupathtracer_tpu.render.renderer import render_frame
     from gpupathtracer_tpu.utils.config import load_scene_file
 
-    scene, camera, settings = load_scene_file(os.path.join("/root/repo/scenes", path))
+    scenes = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+    scene, camera, settings = load_scene_file(os.path.join(scenes, path))
     settings = dataclasses.replace(
         settings, width=width, height=height, spp=spp, **overrides
     )
@@ -93,7 +96,7 @@ def _render_config5_target():
 
 
 # name -> (render_fn, atol). NEE/MIS goldens cover the estimator family;
-# the pallas case runs the MXU kernel in interpret mode on CPU.
+# the pallas case runs the kernel through the Pallas interpreter on CPU.
 CASES = {
     "config1_64": (lambda: _render_config1(), 2e-5),
     "config1_pallas_64": (lambda: _render_config1(intersector="pallas"), 2e-5),

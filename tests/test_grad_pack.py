@@ -1,4 +1,4 @@
-"""Grad-mode packing fast paths (VERDICT r4 items 1/4).
+"""Grad-mode packing fast paths.
 
 The packed scene entering the Pallas kernel is wholly detached
 (stop_gradient at the kernel boundary), and liveness (valid/two_sided) is a
@@ -106,30 +106,27 @@ def test_narrow_settings_resolves_with_traced_geometry():
     assert tuple(out.material_set) == (0, 1)
 
 
-def test_narrow_settings_rows_round_up_to_block():
-    """ADVICE r4: the streamed/resident estimate must use block-padded rows
-    (matching the kernel's packed.w.size decision)."""
-    from gpupathtracer_tpu.ops.plucker import K, NSCALARS
+def test_narrow_settings_rows_round_up_to_block(monkeypatch):
+    """The sort autos turn on from the packed row count (two-sided rows
+    counted twice, as the kernel packs them) and only for the culling
+    intersector; the XLA scan never sorts."""
+    import gpupathtracer_tpu.render.renderer as renderer
 
     scene = _demo_scene()
-    rows = int(np.asarray(scene.valid).sum() + (np.asarray(scene.two_sided) & np.asarray(scene.valid)).sum())
-    tb = pi.compiled_tri_block(512)
-    rows_padded = -(-rows // tb) * tb
-    # Choose a budget between raw-rows and padded-rows byte sizes: resolution
-    # must follow the PADDED size (streamed), not the raw size (resident).
-    raw = rows * K * NSCALARS * 4
-    padded = rows_padded * K * NSCALARS * 4
-    assert padded > raw
-    import gpupathtracer_tpu.ops.pallas_intersect as pimod
-
-    old = pimod.RESIDENT_BUDGET_BYTES
-    try:
-        pimod.RESIDENT_BUDGET_BYTES = (raw + padded) // 2
-        st = narrow_settings(scene, RenderSettings(width=8, height=8, tri_block=512,
-                                                   sort_rays="auto", sort_key="auto"))
-        assert st.sort_rays is True and st.sort_key == "origin"
-    finally:
-        pimod.RESIDENT_BUDGET_BYTES = old
+    valid = np.asarray(scene.valid)
+    rows = int(valid.sum() + (np.asarray(scene.two_sided) & valid).sum())
+    assert rows > int(valid.sum()), "the light plane's rows are duplicated"
+    auto = RenderSettings(width=8, height=8, intersector="pallas",
+                          sort_rays="auto", sort_key="auto")
+    monkeypatch.setattr(renderer, "SORT_RAYS_MIN_TRIANGLES", rows)
+    st = narrow_settings(scene, auto)
+    assert st.sort_rays is True and st.sort_key == "origin"
+    monkeypatch.setattr(renderer, "SORT_RAYS_MIN_TRIANGLES", rows + 1)
+    st = narrow_settings(scene, auto)
+    assert st.sort_rays is False and st.sort_key == "dir"
+    monkeypatch.setattr(renderer, "SORT_RAYS_MIN_TRIANGLES", 0)
+    st = narrow_settings(scene, dataclasses.replace(auto, intersector="plucker"))
+    assert st.sort_rays is False and st.sort_key == "dir"
 
 
 def test_grad_mode_image_and_grads_match_fully_traced():

@@ -10,6 +10,7 @@ from gpupathtracer_tpu.models.camera import Camera, generate_rays
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec, sphere_spec, icosphere
 from gpupathtracer_tpu.render.integrator import IntegratorOptions, trace_paths
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
+from meshes import triangle_mesh
 
 EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0}
 RED = {"type": "diffuse", "albedo": (1.0, 0.0, 0.0)}
@@ -128,7 +129,7 @@ def test_glass_sphere_energy_plausible():
 def test_render_frame_deterministic():
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [RED, EMITTER],
@@ -148,7 +149,7 @@ def test_render_config1_occlusion():
     at 1 bounce — emitter pixels = Le, triangle pixels = 0."""
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [RED, EMITTER],
@@ -226,7 +227,7 @@ def test_material_set_specialization_bit_identical():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [RED, EMITTER],
@@ -260,7 +261,7 @@ def test_narrow_settings_respects_pinned_set():
     from gpupathtracer_tpu.render.renderer import narrow_settings
 
     scene = build_scene(
-        [mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0)],
+        [mesh_spec(triangle_mesh(), mat_id=0)],
         [RED],
         pad_to_multiple=8,
     )

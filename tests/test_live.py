@@ -12,12 +12,13 @@ from gpupathtracer_tpu.models.camera import Camera
 from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.render.live import apply_command, live_view
 from gpupathtracer_tpu.render.renderer import RenderSettings
+from meshes import triangle_mesh
 
 
 def _scene():
     return build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [
@@ -41,9 +42,9 @@ def test_live_refines_to_max_spp(tmp_path):
     assert spp == 6
     status = json.load(open(os.path.join(out, "status.json")))
     assert status["spp"] == 6 and status["frame"] == 3
-    from PIL import Image
+    from gpupathtracer_tpu.utils.image import read_png
 
-    img = np.asarray(Image.open(os.path.join(out, "live.png")))
+    img = read_png(os.path.join(out, "live.png"))
     assert img.shape == (24, 24, 3)
     assert img.max() > 200  # the emitter backdrop is visible
 

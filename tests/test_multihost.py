@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+from meshes import cube_mesh
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "multihost_worker.py")
@@ -83,7 +84,7 @@ def test_two_process_render_matches_single_process(tmp_path):
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/cube.obj", mat_id=0),
+            mesh_spec(cube_mesh(), mat_id=0),
             plane_spec((0.0, 2.0, 0.0), (90.0, 0.0, 0.0), (4.0, 4.0, 4.0), mat_id=1),
         ],
         [
@@ -95,9 +96,9 @@ def test_two_process_render_matches_single_process(tmp_path):
     cam = Camera.create(position=(0.0, 0.0, 6.0), width=32, height=32)
     settings = RenderSettings(
         width=32, height=32, spp=2, bounces=2, tri_block=8, estimator="nee",
-        # The PRODUCTION intersector (pallas; interpret on CPU): the real
-        # jax.distributed 2-process run exercises the kernel the pod runs
-        # (round 4 pinned plucker here — VERDICT r4 missing 1).
+        # The intersector "auto" picks on a GPU (the Pallas kernel, through
+        # the interpreter here): the real jax.distributed 2-process run
+        # exercises the kernel the cards run.
         intersector="pallas",
     )
     ref = np.asarray(render_frame(scene, cam, settings))

@@ -1,9 +1,11 @@
-"""Coverage for the Pallas kernel paths the round-1 suite missed:
-the any-hit occlusion kernel (ops/pallas_intersect.py::_kernel_occlusion)
-and the streaming non-VMEM-resident path (::_kernel_streamed — in-kernel
-double-buffered cluster DMA). Both run interpret-mode on CPU against the
-Möller–Trumbore oracle."""
+"""The Pallas intersection kernel (ops/pallas_intersect.py) through the
+Pallas interpreter on CPU: closest-hit and any-hit modes against the
+Möller–Trumbore oracle, its tile/block shapes and padding, the alive mask,
+and how an intersector is chosen on a machine without a GPU."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from gpupathtracer_tpu.ops.pallas_intersect import (
     intersect_pallas_occluded,
     pack_scene,
 )
+from gpupathtracer_tpu.render.integrator import IntegratorOptions, resolved_intersector
 
 
 def random_scene(seed=0, pad=128, n_one_sided=150, n_two_sided=50, rays=800):
@@ -90,99 +93,105 @@ def test_occlusion_kernel_dead_lanes_unoccluded():
     assert not occ[~live].any()
 
 
-def test_streaming_launch_matches_resident(monkeypatch):
-    """Force the streaming path (_launch_streamed) — what any scene over
-    the VMEM budget hits on TPU — and demand bit-equal hits vs the resident
-    while_loop kernel and >99.9% agreement with the oracle."""
-    scene, o, d = random_scene(seed=9)
-    packed = pack_scene(scene, tri_block=128)
-    h_res = intersect_pallas(o, d, packed, ray_tile=256, interpret=True)
-
-    monkeypatch.setattr(pallas_intersect, "RESIDENT_BUDGET_BYTES", 0)
-    h_str = intersect_pallas(o, d, packed, ray_tile=256, interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(h_str.tri), np.asarray(h_res.tri))
-    np.testing.assert_array_equal(np.asarray(h_str.hit), np.asarray(h_res.hit))
-    np.testing.assert_allclose(
-        np.asarray(h_str.t)[np.asarray(h_str.hit)],
-        np.asarray(h_res.t)[np.asarray(h_res.hit)],
-        rtol=1e-6,
-    )
-
+@pytest.mark.parametrize(
+    "ray_tile,tri_block,rays",
+    [(16, 16, 800), (32, 64, 777), (64, 32, 513), (128, 128, 1000)],
+)
+def test_kernel_shapes_match_oracle(ray_tile, tri_block, rays):
+    """Every tile/block pair, including ray counts that are not a multiple
+    of the tile (padded lanes are dead): >99.9% triangle agreement with the
+    oracle, t equal to 1e-4 where the winner agrees."""
+    scene, o, d = random_scene(seed=9, rays=rays)
+    packed = pack_scene(scene, tri_block=tri_block)
+    h = intersect_pallas(o, d, packed, ray_tile=ray_tile, interpret=True)
     h_mt = intersect_brute(o, d, scene, tri_block=128)
-    agree = np.asarray(h_str.tri) == np.asarray(h_mt.tri)
+    assert h.t.shape == (rays,) and h.tri.shape == (rays,)
+    agree = np.asarray(h.tri) == np.asarray(h_mt.tri)
     assert agree.mean() > 0.999
-
-
-def test_streaming_launch_in_frame_render(monkeypatch):
-    """End-to-end: a full frame through the streaming path equals the
-    resident-path frame exactly (the launch selection must be invisible)."""
-    from gpupathtracer_tpu.models.camera import Camera
-    from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
-
-    scene = build_scene(
-        [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
-            plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
-        ],
-        [
-            {"type": "diffuse", "albedo": (1.0, 0.0, 0.0)},
-            {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0},
-        ],
-        pad_to_multiple=128,
-    )
-    cam = Camera.create(position=(0.5, 0.5, 3.0), width=16, height=16)
-    settings = RenderSettings(
-        width=16, height=16, spp=2, bounces=2, tri_block=128, intersector="pallas"
-    )
-    img_res = np.asarray(render_frame(scene, cam, settings))
-    monkeypatch.setattr(pallas_intersect, "RESIDENT_BUDGET_BYTES", 0)
-    import jax
-
-    jax.clear_caches()  # launch selection happens at trace time — force retrace
-    img_str = np.asarray(render_frame(scene, cam, settings))
-    np.testing.assert_array_equal(img_str, img_res)
-
-
-def test_high_precision_mode_near_parity():
-    """kernel_precision="high" (manual 3-pass bf16 hi/lo dots) must agree
-    with the f32-exact mode on essentially all hits (fp-boundary flips
-    only). On-chip measurement: 99.997% tri agreement, 1.17x frame rate."""
-    scene, o, d = random_scene(seed=12)
-    packed = pack_scene(scene, tri_block=128)
-    h_exact = intersect_pallas(o, d, packed, ray_tile=256, interpret=True)
-    h_fast = intersect_pallas(
-        o, d, packed, ray_tile=256, interpret=True, precision="high"
-    )
-    agree = np.asarray(h_fast.tri) == np.asarray(h_exact.tri)
-    assert agree.mean() > 0.995
-    same = agree & np.asarray(h_exact.hit)
+    same = agree & np.asarray(h_mt.hit)
     np.testing.assert_allclose(
-        np.asarray(h_fast.t)[same], np.asarray(h_exact.t)[same], rtol=1e-2, atol=1e-2
+        np.asarray(h.t)[same], np.asarray(h_mt.t)[same], rtol=1e-4, atol=1e-4
     )
 
 
-def test_mixed_precision_mode_exact_t_near_parity():
-    """kernel_precision="mixed" (edge columns at 3-pass bf16, D|num f32-exact)
-    agrees with the exact mode on essentially all hits, and — unlike "high" —
-    returns EXACTLY the f32 t wherever the winning triangle agrees."""
-    scene, o, d = random_scene(seed=12)
-    packed = pack_scene(scene, tri_block=128)
-    h_exact = intersect_pallas(o, d, packed, ray_tile=256, interpret=True)
-    h_mixed = intersect_pallas(
-        o, d, packed, ray_tile=256, interpret=True, precision="mixed"
-    )
-    agree = np.asarray(h_mixed.tri) == np.asarray(h_exact.tri)
-    assert agree.mean() > 0.995
-    same = agree & np.asarray(h_exact.hit)
-    np.testing.assert_array_equal(
-        np.asarray(h_mixed.t)[same], np.asarray(h_exact.t)[same]
-    )
+def test_pack_layout_and_blocks():
+    """The pack is (nb, 5, K, tb): one (K, tb) test matrix per decision
+    scalar, so the kernel loads power-of-two slices; rows are padded to a
+    whole block and two-sided rows appear twice in tri_map."""
+    from gpupathtracer_tpu.ops.plucker import K, NSCALARS
+
+    scene, _, _ = random_scene(seed=10)
+    packed = pack_scene(scene, tri_block=32)
+    valid = np.asarray(scene.valid)
+    rows = int(valid.sum() + (np.asarray(scene.two_sided) & valid).sum())
+    nb = -(-rows // 32)
+    assert packed.w.shape == (nb, NSCALARS, K, 32)
+    assert packed.tri_map.shape == (nb * 32,)
+    assert packed.box_lo.shape == (nb, 3) and packed.block_live.shape == (nb,)
+    assert packed.tri_block == 32
 
 
-def test_auto_precision_resolves_by_backend():
-    from gpupathtracer_tpu.ops.pallas_intersect import resolve_precision
+def test_alive_mask_dead_lanes_report_no_hit():
+    """Dead lanes (alive=False) are left out of the tile frustums and report
+    no hit; live lanes equal the unmasked call exactly."""
+    scene, o, d = random_scene(seed=11)
+    packed = pack_scene(scene, tri_block=64)
+    alive = jnp.asarray(np.arange(o.shape[0]) % 3 != 0)
+    h_all = intersect_pallas(o, d, packed, ray_tile=32, interpret=True)
+    h = intersect_pallas(o, d, packed, ray_tile=32, interpret=True, alive=alive)
+    a = np.asarray(alive)
+    np.testing.assert_array_equal(np.asarray(h.tri)[a], np.asarray(h_all.tri)[a])
+    np.testing.assert_array_equal(np.asarray(h.t)[a], np.asarray(h_all.t)[a])
+    assert not np.asarray(h.hit)[~a].any()
+    assert (np.asarray(h.tri)[~a] == -1).all()
 
-    # Tests run on CPU (conftest): auto must resolve to the exact mode.
-    assert resolve_precision("auto") == "highest"
-    assert resolve_precision("mixed") == "mixed"
+
+def test_kernel_products_are_exact_f32():
+    """The kernel's decision products ask for exact float32 (the GPU would
+    otherwise run them in TF32): read the dot precision off its jaxpr."""
+    scene, o, d = random_scene(seed=12, rays=64)
+    packed = pack_scene(scene, tri_block=32)
+    jaxpr = jax.make_jaxpr(
+        lambda a, b: intersect_pallas(a, b, packed, ray_tile=32, interpret=True).t
+    )(o, d)
+    precisions = []
+
+    def walk(jx):
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "dot_general":
+                precisions.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                inner = getattr(v, "jaxpr", v)
+                if hasattr(inner, "eqns"):
+                    walk(inner)
+
+    walk(jaxpr.jaxpr)
+    assert len(precisions) == 5  # s0, s1, s2, D, num
+    assert all(p == jax.lax.DotAlgorithmPreset.F32_F32_F32 for p in precisions)
+
+
+def test_intersector_selection_without_gpu(monkeypatch):
+    """On a machine without a GPU: "auto" is the XLA Plücker scan, and an
+    explicit "pallas" is an error unless the tests opted in to the
+    interpreter; the kernel itself refuses to compile."""
+    assert not pallas_intersect.kernel_available()
+    opts = IntegratorOptions()
+    assert resolved_intersector(opts) == "plucker"
+    for which in ("plucker", "brute", "bvh"):
+        assert resolved_intersector(dataclasses.replace(opts, intersector=which)) == which
+    pallas = dataclasses.replace(opts, intersector="pallas")
+    assert resolved_intersector(pallas) == "pallas"  # INTERPRET is on in the tests
+    monkeypatch.setattr(pallas_intersect, "INTERPRET", False)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        resolved_intersector(pallas)
+    scene, o, d = random_scene(seed=13, rays=32)
+    with pytest.raises(RuntimeError, match="compiles only for a GPU"):
+        intersect_pallas(o, d, pack_scene(scene, tri_block=32), ray_tile=32)
+
+
+def test_intersector_auto_picks_kernel_on_gpu(monkeypatch):
+    """Where the kernel's route compiles, "auto" resolves to it."""
+    monkeypatch.setattr(pallas_intersect, "kernel_available", lambda: True)
+    assert resolved_intersector(IntegratorOptions()) == "pallas"
+    opts = IntegratorOptions(intersector="plucker")
+    assert resolved_intersector(opts) == "plucker"

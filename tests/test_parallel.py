@@ -11,6 +11,7 @@ from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.parallel.mesh import make_mesh
 from gpupathtracer_tpu.parallel.render import render_frame_distributed
 from gpupathtracer_tpu.render.renderer import RenderSettings, render_frame
+from meshes import triangle_mesh
 
 RED = {"type": "diffuse", "albedo": (1.0, 0.0, 0.0)}
 EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.0}
@@ -19,7 +20,7 @@ EMITTER = {"type": "emitter", "emissive_color": (1.0, 1.0, 1.0), "intensity": 2.
 def _scene(pad=128):
     return build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [RED, EMITTER],

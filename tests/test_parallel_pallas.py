@@ -1,12 +1,11 @@
 """The PRODUCTION distributed path: the Pallas kernel inside shard_map.
 
-Every round-4 distributed test pinned ``intersector="plucker"`` — but on a
-real multi-chip TPU ``render_frame_distributed`` resolves "auto" to the
-Pallas kernel inside the shard_map body (VERDICT r4 missing 1). These tests
-run that exact composition (pack-under-shard_map static shapes, kernel
-launch under manual collectives) in interpret mode on the virtual-device
-mesh, asserting bit-identity with the single-device Pallas render across
-all three scene strategies.
+On GPUs ``render_frame_distributed`` resolves "auto" to the Pallas kernel
+inside the shard_map body. These tests run that exact composition
+(pack-under-shard_map static shapes, kernel launch under manual
+collectives) through the Pallas interpreter on the virtual-device mesh,
+asserting bit-identity with the single-device Pallas render across all
+three scene strategies.
 """
 
 import dataclasses
@@ -98,12 +97,13 @@ def test_pallas_shard_map_distributed_gradient(single_device_frame):
     np.testing.assert_allclose(np.asarray(g_dist), np.asarray(g_single), rtol=1e-5, atol=1e-8)
 
 
-def test_pallas_shard_map_mixed_phase_packing(single_device_frame):
-    """Pure-DP distributed render with tri_block_secondary: the scan bounces
-    run on the wider second pack inside the shard_map body, bit-identical to
-    the single-device render (which is itself block-width-invariant)."""
+def test_pallas_shard_map_mask_compaction(single_device_frame):
+    """Pure-DP distributed render with mask compaction (the live mask goes
+    into the kernel's frustum pre-pass inside the shard_map body) is
+    bit-identical to the single-device render (compaction mode never
+    changes a sample)."""
     scene, camera, ref = single_device_frame
     mesh = make_mesh(n_data=4, n_scene=1, devices=jax.devices()[:4])
-    mixed = dataclasses.replace(SETTINGS, tri_block_secondary=16)
-    img = np.asarray(render_frame_distributed(scene, camera, mixed, mesh))
+    masked = dataclasses.replace(SETTINGS, compact_mode="mask")
+    img = np.asarray(render_frame_distributed(scene, camera, masked, mesh))
     np.testing.assert_array_equal(img, ref)

@@ -11,6 +11,7 @@ from gpupathtracer_tpu.models.scene import build_scene, mesh_spec, plane_spec
 from gpupathtracer_tpu.ops.intersect import intersect_brute
 from gpupathtracer_tpu.ops.pallas_intersect import intersect_pallas, pack_scene
 from gpupathtracer_tpu.ops.plucker import pack_triangles, intersect_plucker_jnp
+from meshes import triangle_mesh
 
 
 def random_scene(seed=0, pad=128):
@@ -162,7 +163,7 @@ def test_render_frame_with_plucker_backend_matches_brute():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [

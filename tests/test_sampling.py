@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from gpupathtracer_tpu.ops import sampling
+from meshes import triangle_mesh
 
 
 def test_cosine_hemisphere_warp_formula():
@@ -104,7 +105,7 @@ def test_keys_deterministic_and_distinct():
     assert len({tuple(row) for row in kd.reshape(8, -1)}) == 8
 
 
-# --- PCG4D sampler (the TPU-first default RNG engine) ------------------------
+# --- PCG4D sampler (the default RNG engine) ----------------------------------
 
 
 def _pcg_draws(n=1 << 16, seed=7, sample=0, stream=0):
@@ -166,7 +167,7 @@ def test_pcg_vs_threefry_estimator_agreement():
 
     scene = build_scene(
         [
-            mesh_spec("/root/reference/sceneResources/triangle.obj", mat_id=0),
+            mesh_spec(triangle_mesh(), mat_id=0),
             plane_spec((0.5, 0.5, -1.5), (0, 0, 0), (8, 8, 8), mat_id=1),
         ],
         [

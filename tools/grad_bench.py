@@ -1,9 +1,10 @@
-"""Round-5 A/B: streamed-scene fwd vs fwd+bwd with the grad-mode trimmed
-pack + sort autos (VERDICT r4 item 1). Run on the chip:
+"""Forward vs forward+backward frame time on the large scenes (configs 6
+and 7) and config 3, on the GPU:
 
-    setsid nohup python tools/grad_bench.py > /tmp/grad_bench.log 2>&1 &
+    python tools/grad_bench.py
 
-Prints one JSON line per measurement.
+Prints one JSON line per measurement; every timed call ends in
+jax.block_until_ready.
 """
 
 import dataclasses
@@ -42,12 +43,10 @@ def bench_config(fname, spp, iters=2):
     settings = dataclasses.replace(settings, spp=spp)
     rays = settings.width * settings.height * settings.spp * settings.bounces
 
-    @jax.jit
-    def _sum(img):
-        return jnp.sum(img)
-
     def fwd_step(i):
-        return float(_sum(render_frame(scene, camera, settings, seed=jnp.uint32(1000 + i))))
+        return jax.block_until_ready(
+            render_frame(scene, camera, settings, seed=jnp.uint32(1000 + i))
+        )
 
     dt, cs = timed(fwd_step, iters)
     print(json.dumps({"config": fname, "mode": "fwd", "median_s": round(dt, 3),
@@ -60,8 +59,7 @@ def bench_config(fname, spp, iters=2):
     grad_fn = jax.jit(jax.grad(loss, argnums=(0, 1)))
 
     def bwd_step(i):
-        g0, g1 = grad_fn(scene.v0, scene.materials.albedo, jnp.uint32(i))
-        return float(jnp.sum(g0.ravel()[0:1])) + float(jnp.sum(g1.ravel()[0:1]))
+        return jax.block_until_ready(grad_fn(scene.v0, scene.materials.albedo, jnp.uint32(i)))
 
     dt2, cs2 = timed(bwd_step, iters)
     print(json.dumps({"config": fname, "mode": "fwd_bwd", "median_s": round(dt2, 3),
